@@ -2,7 +2,7 @@
 //
 // The reference keeps its acceleration-structure builders in native code
 // (TriangleBvh4's CPU build, src/triangle_bvh.cu:541; the triangle octree
-// refinement, triangle_octree.cuh:46-382). The TPU framework's device
+// refinement, triangle_octree.cuh:46-382). The framework's device
 // queries are JAX, but the host builds are genuinely CPU work — this
 // library implements them in C++ with the *same algorithms and traversal
 // order* as the numpy fallbacks in ngp_tpu/geometry/, so outputs are

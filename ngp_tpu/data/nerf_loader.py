@@ -14,7 +14,7 @@ Reproduces the reference loader's semantics (``src/nerf_loader.cu:259-730``):
   shutter / motion blur).
 
 Images load in a thread pool and are kept as uint8 sRGB (+alpha) host
-arrays; conversion to linear happens on-device at sample time (the TPU has
+arrays; conversion to linear happens on-device at sample time (the device has
 bandwidth to spare for that and it keeps HBM footprint 4x smaller).
 """
 

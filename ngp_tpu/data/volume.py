@@ -2,7 +2,7 @@
 
 The reference streams a NanoVDB FloatGrid and accesses it through the
 device-side tree accessor (``src/testbed_volume.cu:573-651``). The
-TPU-native representation is a **dense index-space density array** —
+representation here is a **dense index-space density array** —
 random access becomes a plain gather, which is what the hardware can do —
 plus the same derived quantities the reference computes at load time: a
 unit-cube AABB fitted around the index bounding box, the world→index

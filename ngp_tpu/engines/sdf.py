@@ -1,10 +1,10 @@
-"""SDF engine — TPU counterpart of ``src/testbed_sdf.cu``.
+"""SDF engine — JAX counterpart of ``src/testbed_sdf.cu``.
 
 A hash-encoded MLP regresses position → signed distance, supervised by
 exact signed distances from a triangle BVH; rendering is a masked,
 ``while_loop``-based sphere tracer (the reference uses a wavefront loop
 with atomic compaction + host readback, ``SphereTracer::trace``
-``testbed_sdf.cu:707-799`` — on TPU the whole image marches in lockstep
+``testbed_sdf.cu:707-799`` — here the whole image marches in lockstep
 with per-ray alive masks and no host syncs).
 
 Training-batch recipe matches ``generate_training_samples_sdf``
@@ -373,7 +373,7 @@ class SdfEngine:
     def _shade_mode(self, params, pos, dirs, hit, steps, gt_bvh: bool,
                     mode: str, shadow: bool):
         """``shade_kernel_sdf`` (``src/testbed_sdf.cu:297-375``) render
-        modes on TPU: Shade (Disney BRDF + sun/sky + optional sphere-traced
+        modes: Shade (Disney BRDF + sun/sky + optional sphere-traced
         soft shadows), AO (step-count occlusion), Normals, Positions,
         Cost."""
         from ngp_tpu.ops.shading import evaluate_shading

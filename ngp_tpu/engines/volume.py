@@ -1,11 +1,11 @@
-"""Volume engine — TPU counterpart of ``src/testbed_volume.cu``.
+"""Volume engine — JAX counterpart of ``src/testbed_volume.cu``.
 
 A hash-encoded MLP learns ``pos → (radiance rgb, density)`` supervised by a
 Woodcock/delta-tracking path tracer over a reference density volume
 (NanoVDB in the reference, a dense index-space array here — see
 ``ngp_tpu/data/volume.py``). Rendering delta-tracks the learned field.
 
-TPU-native reshaping of the reference kernels:
+Static-shape reshaping of the reference kernels:
 
 * ``volume_generate_training_data_kernel`` (``testbed_volume.cu:87-156``)
   runs one CUDA thread per episode with an unbounded retry loop; here a

@@ -42,6 +42,13 @@ class Camera(NamedTuple):
     lens: Lens = Lens()
 
 
+def matvec(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
+    """``m @ v`` over the last axes (m (..., R, C), v (..., C)), as an
+    elementwise multiply and sum: exact float32, where a GPU dot of
+    float32 operands may run in TF32 (10 mantissa bits)."""
+    return jnp.sum(m * v[..., None, :], axis=-1)
+
+
 def fov_to_focal_length(resolution_px: float, degrees: float) -> float:
     return 0.5 * resolution_px / np.tan(0.5 * np.radians(degrees))
 
@@ -98,7 +105,7 @@ def iterative_undistortion(delta_fn, params, u, v, iters: int = 10):
             )
             / det[..., None, None]
         )
-        step = jnp.einsum("...ij,...j->...i", inv, r)
+        step = matvec(inv, r)
         return x - step
 
     x = jax.lax.fori_loop(0, iters, body, x0)
@@ -189,7 +196,7 @@ def uv_to_ray(
     near_distance: float = 0.0,
     distortion_grid=None,  # optional callable uv -> (...,2) extra dir offset
 ):
-    """Generate world-space rays from uv in [0,1]² — the TPU counterpart of
+    """Generate world-space rays from uv in [0,1]² — the JAX counterpart of
     ``uv_to_ray`` (common_device.cuh:443-510). Returns (origin, direction);
     direction is *not* normalized (z=1 in camera space), like the reference."""
     W, H = resolution
@@ -218,12 +225,12 @@ def uv_to_ray(
     origin = jnp.broadcast_to(
         camera_matrix[..., :3, 3], dir_cam.shape[:-1] + (3,)
     )
-    direction = jnp.einsum("...ij,...j->...i", rot, dir_cam)
+    direction = matvec(rot, dir_cam)
 
     if aperture_size > 0.0 and aperture_uv is not None:
         lookat = origin + direction * focus_z
         blur = aperture_size * square2disk_shirley(aperture_uv * 2.0 - 1.0)
-        offset = jnp.einsum("...ij,...j->...i", rot[..., :, :2], blur)
+        offset = matvec(rot[..., :, :2], blur)
         origin = origin + offset
         direction = (lookat - origin) / focus_z
 

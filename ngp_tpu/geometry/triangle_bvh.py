@@ -7,7 +7,7 @@ per-thread stacks in CUDA (plus OptiX programs). Here the build is numpy
 exactly ``LEAF_SIZE`` triangles so query shapes stay static) and queries
 are a ``lax.while_loop`` over per-query explicit stacks — batched,
 mask-driven, no recursion, runs on CPU for host-side ground-truth
-generation and on TPU unchanged.
+generation and on the accelerator unchanged.
 
 Queries: ``closest_point`` (pruned best-first-ish stack traversal, exact),
 ``signed_distance_watertight`` (sign from the closest triangle's normal,

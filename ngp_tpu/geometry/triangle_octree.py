@@ -1,4 +1,4 @@
-"""Triangle octree — TPU-native sparse voxel pyramid.
+"""Triangle octree — static-shape sparse voxel pyramid.
 
 The reference builds a pointer-based octree over the SDF mesh
 (``triangle_octree.cuh:46-382``: ``TriangleOctreeNode`` with 8 child
@@ -6,10 +6,10 @@ pointers, ``TriangleOctreeDualNode`` with 8 deduplicated vertex indices)
 and traverses it per thread with data-dependent loops (``traverse``,
 ``contains``, stack-based ``ray_intersect``).
 
-Pointer chasing is hostile to TPUs, so this module re-designs the same
-structure as a **sparse voxel pyramid**: per depth, a *sorted* array of
-occupied-voxel linear codes plus a parallel table of the 8 dual-vertex ids
-of each voxel. Every reference query becomes a batched, fixed-depth
+Pointer chasing is hostile to batched static-shape code, so this module
+re-designs the same structure as a **sparse voxel pyramid**: per depth, a
+*sorted* array of occupied-voxel linear codes plus a parallel table of the
+8 dual-vertex ids of each voxel. Every reference query becomes a batched, fixed-depth
 primitive:
 
 - ``traverse``  → per-level ``searchsorted`` on the code array (the octree

@@ -1,12 +1,12 @@
-"""Input encodings, re-implemented TPU-first in pure JAX.
+"""Input encodings, re-implemented in pure JAX.
 
 These reproduce the *semantics* of the tcnn encodings the reference uses
 (HashGrid/DenseGrid/TiledGrid, SphericalHarmonics, OneBlob, Frequency,
 TriangleWave, Identity, Composite — see reference ``configs/*/*.json`` and
 SURVEY.md §2.10), but the implementation is batched, static-shape JAX: the
 hash-grid forward is a vectorized 8-corner gather + trilinear blend over all
-levels at once, and the backward is XLA's scatter-add transpose (a Pallas
-kernel can replace the hot path without changing this interface).
+levels at once, and the table gradient is a float32 scatter-add
+(``ops/scatter_free.batched_segment_sum``), tcnn's own mechanism.
 
 Encoding protocol: ``enc.init(key) -> params`` (a pytree, possibly empty) and
 ``enc(params, x) -> (N, n_output_dims)`` where ``x`` is ``(N, n_input_dims)``
@@ -40,7 +40,7 @@ def grid_dup_gather_blend(
     ``dup[i] = [t[i], t[i+1], t[i+S2], t[i+S2+1], t[i+S3], …]`` (mod the
     level size).
 
-    TPU fast path for Linear interpolation with the *additive* hash: the
+    Fast path for Linear interpolation with the *additive* hash: the
     additive hash ``h = x + y·P2 + z·P3 (mod size)`` makes every corner of
     a cell an affine shift of the cell's base address — corner (dx,dy,dz)
     lives at ``base + dx + dy·S2 + dz·S3 (mod size)`` with static
@@ -50,7 +50,7 @@ def grid_dup_gather_blend(
 
     The backward (3D default: "quads") keys the two z-plane group bases
     per cell (4F-wide payloads — a quarter of the rows of a per-corner
-    segment sum, at 5 sort operands) and folds with three shifted adds;
+    segment sum) and folds with three shifted adds;
     ``NGP_TPU_DUP_BWD`` selects "pairs" (P x-adjacent pair rows, 2F
     payloads) or the experimental "corners" instead — see ``_gdgb_bwd``.
 
@@ -59,16 +59,12 @@ def grid_dup_gather_blend(
     clamp with the fraction pushed to 1 reads the same clamped corner
     value). Gradients flow to ``table`` only.
 
-    Row format: XLA's TPU row gather is issue-bound at ~10 ns/row with a
-    ~0.16 ns/byte width term (device-trace-measured, bench_gather6 — the
-    earlier 3-5 ns/row numbers came from ``block_until_ready``, which does
-    not block on this platform). Halving the row from 64 B to 32 B by
-    packing feature pairs as bf16 in int32 lanes cuts the gather ~1.6x;
-    the unpack is trivial VPU work. bf16 features are the same precision
-    class as the reference's fp16 inference params (tcnn Trainer keeps
-    fp16 inference weights — SURVEY §2.10); the master table and all
-    gradient accumulation stay fp32. ``enc.dup_gather_dtype = "float32"``
-    keeps full-precision rows.
+    Row format: by default feature pairs ride the gather as bf16 packed in
+    int32 lanes, halving the row from 64 B to 32 B. bf16 features are the
+    same precision class as the reference's fp16 inference params (tcnn
+    Trainer keeps fp16 inference weights — SURVEY §2.10); the master
+    table and all gradient accumulation stay fp32.
+    ``enc.dup_gather_dtype = "float32"`` keeps full-precision rows.
     """
     L, T, F = table.shape
     D = enc.n_input_dims
@@ -110,16 +106,11 @@ def grid_dup_gather_blend(
         # (L, N, C·F/2, 2) -> (L, N, C·F) restores feature-minor order
         rows = jnp.stack([lo, hi], axis=-1).reshape(L, N, C * F)
         rows = rows.astype(jnp.float32)
-    # Blend as one wide (N, C·F) multiply + a tiny selection matmul —
-    # narrow-minor elementwise chains (·, C, F) run at a fraction of lane
-    # width on TPU.
-    rows = rows.reshape(L, N, C * F)
-    wex = jnp.broadcast_to(wc[..., None], (L, N, C, F)).reshape(L, N, C * F)
-    sel = jnp.tile(jnp.eye(F, dtype=table.dtype), (C, 1))  # (C·F, F)
-    return jax.lax.dot_general(
-        rows * wex, sel, (((2,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
+    # Blend as an elementwise multiply and a sum over corners (fused by
+    # XLA). A 0/1 selection matmul would run in TF32 on the GPU and round
+    # every product to 10 mantissa bits.
+    rows = rows.reshape(L, N, C, F)
+    return jnp.sum(rows * wc[..., None], axis=2)
 
 
 def _pair_keys(enc: "GridEncoding", base: jax.Array) -> jax.Array:
@@ -150,23 +141,17 @@ def _gdgb_bwd(enc, res, g):
         # EXPERIMENTAL (NGP_TPU_DUP_BWD=corners): ONE segment-sum key
         # per (level, sample) — the cell's base row — with all 2^D corner
         # contributions as a C·F-wide payload, then a static-shift fold
-        # dtable[t] = Σ_c q_c[(t − δ_c) mod size]. 4× fewer sort rows
-        # than the pair construction, BUT measured SLOWER on v5e: XLA's
-        # TPU sort cost explodes beyond ~4 operands (key + 2 packed
-        # payload cols sorts (8, 655360) in 7.8 ms; key + 8 packed cols
-        # sorts (6, 163840) in 74.6 ms), and the C·F=16 payload needs 8
-        # packed columns. Kept for A/B and for any future sort that
-        # moves payload by permutation instead of by column.
+        # dtable[t] = Σ_c q_c[(t − δ_c) mod size]. 4× fewer keys than the
+        # pair construction, with 4× wider rows.
         C = 1 << D
         vals = (wc[..., None] * g[:, :, None, :]).reshape(L, N, C * F)
         q = batched_segment_sum(
-            base, vals, T, level_sizes=[int(s) for s in sizes]
+            base, vals, T
         )
         shifts = enc._corner_shifts()  # (L, C) static
-        # Fold in a T-minor layout: ops on (F, T) slabs use full vector
-        # lanes; the natural (T, C·F) orientation would run every roll at
-        # C·F/128 lane efficiency (measured ~450 ms vs ~3 ms for the
-        # whole fold).
+        # Fold in a T-minor layout: rolls of (F, T) slabs move contiguous
+        # rows; the natural (T, C·F) orientation rolls narrow strided
+        # columns.
         qT = jnp.transpose(q, (0, 2, 1))  # (L, C·F, T)
         folded = []
         for l in range(L):
@@ -190,11 +175,8 @@ def _gdgb_bwd(enc, res, g):
         # z-adjacent QUAD grouping: 2 segment-sum keys per (level, sample)
         # — the two z-plane group bases ``base + {0, s3} mod size`` — with
         # the 4 in-plane corner contributions as a 4F-wide payload, then a
-        # 4-piece static-shift fold. Halves the sort rows vs the pair
-        # construction at 5 sort operands (key + 4 packed-bf16 columns),
-        # inside XLA's operand cliff: sort (6, 327680, 5 cols) = 7.3 ms vs
-        # (6, 655360, 3 cols) = 10.7 ms measured on v5e (r5). The 8-wide
-        # single-key "corners" payload needs 9 operands — 74.6 ms.
+        # 4-piece static-shift fold. Half the keys of the pair
+        # construction.
         s2np, s3np = enc._dup_shifts()
         sz = jnp.asarray(sizes, jnp.int32)
         k2 = jnp.stack(
@@ -214,7 +196,6 @@ def _gdgb_bwd(enc, res, g):
             jnp.transpose(k2, (0, 2, 1)).reshape(L, -1),
             jnp.transpose(vals, (0, 2, 1, 3)).reshape(L, -1, 4 * F),
             T,
-            level_sizes=[int(s) for s in sizes],
         )  # (L, T, 4F)
         # fold: dtable[t] = Σ_{(dx,dy)} piece[(t − dx − dy·s2) mod size]
         # in a T-minor layout (full-lane rolls; see the corners branch)
@@ -245,7 +226,7 @@ def _gdgb_bwd(enc, res, g):
         axis=-1,
     ).reshape(L, base.shape[1] * P, 2 * F)
     pair = batched_segment_sum(
-        keys.reshape(L, -1), vals, T, level_sizes=[int(s) for s in sizes]
+        keys.reshape(L, -1), vals, T
     )
     dtable = pair[..., :F] + jnp.roll(pair[..., F:], 1, axis=1)
     return dtable.astype(proto.dtype), None, None
@@ -259,14 +240,12 @@ def grid_gather_blend(table: jax.Array, idx: jax.Array, w: jax.Array) -> jax.Arr
     """Blend 2^D table rows per (level, sample): ``out[l,n,f] = Σ_c
     w[l,n,c]·table[l, idx[l,n,c], f]``.
 
-    The forward is one flat row gather. The backward replaces XLA's
-    scatter-add — which serializes updates and measures ~60 ns per element
-    on TPU even with unique indices — with the fully scatter-free dense
-    segment sum of ``ngp_tpu.ops.scatter_free`` (two stable sorts + a
-    log-tree cumsum). The log-depth cumsum keeps error at ~eps·log₂(N); the
-    reference accumulates these same gradients in fp16 atomics with a 128×
-    loss scale (``tiny-cuda-nn`` grid backward, SURVEY.md §2.10), so this
-    is strictly tighter.
+    The forward is one flat row gather. The backward is a float32
+    scatter-add of the per-corner contributions
+    (``ops/scatter_free.batched_segment_sum``); the reference accumulates
+    the same gradients in fp16 atomics with a 128× loss scale
+    (``tiny-cuda-nn`` grid backward, SURVEY.md §2.10), so this is
+    strictly tighter.
 
     Gradients flow to ``table`` only: ``w`` (and hence positions) are
     treated as non-differentiable here, matching the reference training
@@ -295,123 +274,13 @@ def _ggb_bwd(res, g):
     (L, T, F), proto, idx, w = res
     tdtype = proto.dtype
     keys = idx.reshape(L, -1)  # (L, N·C), already per-level row indices
-    # per (l, n, c): value vector w·g[l,n,:]  -> (L, N·C, F). The segment
-    # sum accumulates in fp32; by default the addends ride its sort
-    # bf16-packed — the same precision class as tcnn's fp16 atomic
-    # accumulation with loss scaling (SURVEY §2.10). Set
-    # NGP_TPU_SEGSUM_PAYLOAD=float32 for exact fp32 addends.
+    # per (l, n, c): value vector w·g[l,n,:]  -> (L, N·C, F), summed in
+    # fp32
     vals = (w[..., None] * g[:, :, None, :]).astype(jnp.float32).reshape(L, -1, F)
     return batched_segment_sum(keys, vals, T).astype(tdtype), None, None
 
 
 grid_gather_blend.defvjp(_ggb_fwd, _ggb_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
-def grid_gather_blend_enc(
-    enc: "GridEncoding", table: jax.Array, idx: jax.Array, w: jax.Array
-) -> jax.Array:
-    """:func:`grid_gather_blend` with the encoding threaded through so the
-    backward can hand per-level live row counts to the segment sum (its
-    MXU-histogram work scales with the level's table rows, not the padded
-    maximum — a 2-3x saving for mixed dense/hashed pyramids). The outer
-    custom VJP shadows the inner one, so calling the wrapped op directly
-    is safe."""
-    return grid_gather_blend(table, idx, w)
-
-
-def _ggbe_fwd(enc, table, idx, w):
-    proto = jnp.zeros((0,), table.dtype)
-    return grid_gather_blend_enc(enc, table, idx, w), (proto, idx, w)
-
-
-def _ggbe_bwd(enc, res, g):
-    from ngp_tpu.ops.scatter_free import batched_segment_sum
-
-    proto, idx, w = res
-    L, T = enc.n_levels, enc.max_table_rows
-    _, _, sizes, _ = enc._level_geometry()
-    keys = idx.reshape(L, -1)
-    vals = (w[..., None] * g[:, :, None, :]).astype(jnp.float32).reshape(
-        L, keys.shape[1], -1
-    )
-    return (
-        batched_segment_sum(
-            keys, vals, T, level_sizes=[int(s) for s in sizes]
-        ).astype(proto.dtype),
-        None,
-        None,
-    )
-
-
-grid_gather_blend_enc.defvjp(_ggbe_fwd, _ggbe_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
-def pallas_grid_encode(enc: "GridEncoding", table: jax.Array, x: jax.Array) -> jax.Array:
-    """VMEM-resident Pallas forward (see ``ngp_tpu/ops/pallas/hashgrid.py``)
-    + the scatter-free sorted backward with hash indices recomputed from
-    ``x`` (residual = positions only, not the 0.5 GB of indices/weights).
-    ``x`` must already be padded to a TILE multiple; output is (N, L·F)."""
-    from ngp_tpu.ops.pallas.hashgrid import hashgrid_encode_pallas, pack_table
-
-    scales, res, sizes, hashed = enc._level_geometry()
-    out = hashgrid_encode_pallas(
-        pack_table(table),
-        x,
-        jnp.asarray(scales[:, None]),
-        jnp.asarray(res[:, None]),
-        jnp.asarray(hashed.astype(np.int32)[:, None]),
-        jnp.asarray(sizes[:, None]),
-        n_levels=enc.n_levels,
-        table_size=enc.table_size,
-        n_features=enc.n_features_per_level,
-        n_dims=enc.n_input_dims,
-    )
-    return out.reshape(x.shape[0], enc.n_levels * enc.n_features_per_level)
-
-
-def _pge_fwd(enc, table, x):
-    return pallas_grid_encode(enc, table, x), x
-
-
-def _pge_bwd(enc, x, g):
-    from ngp_tpu.ops.scatter_free import batched_segment_sum
-
-    L, F = enc.n_levels, enc.n_features_per_level
-    T = enc.max_table_rows
-    idx, w = enc.indices_and_weights(x)  # (L, N, C)
-    gl = jnp.transpose(g.reshape(x.shape[0], L, F), (1, 0, 2))  # (L, N, F)
-    keys = idx.reshape(L, -1)
-    vals = (w[..., None] * gl[:, :, None, :]).reshape(L, -1, F)
-    return batched_segment_sum(keys, vals, T), None
-
-
-pallas_grid_encode.defvjp(_pge_fwd, _pge_bwd)
-
-_PALLAS_TILE = 8192
-
-
-def _pallas_eligible(enc: "GridEncoding") -> bool:
-    # Experimental, off by default: Mosaic's tpu.dynamic_gather turned out
-    # to be vreg-local ("Multiple source vregs along gather dimension"), so
-    # the VMEM-resident row-gather kernel does not compile on current
-    # hardware toolchains. The kernel remains correct under interpret mode
-    # and documents the design for when the primitive generalizes.
-    if not os.environ.get("NGP_TPU_ENABLE_PALLAS"):
-        return False
-    return (
-        enc.grid_type in ("Hash", "Dense")
-        # the kernel hard-codes the XOR-of-primes hash; with
-        # hash_variant="additive" its backward (indices_and_weights)
-        # would address different rows than the forward
-        and enc.hash_variant == "tcnn"
-        and enc.interpolation == "Linear"
-        and enc.n_features_per_level in (1, 2, 4, 8)
-        and (enc.max_table_rows * enc.n_features_per_level) % 128 == 0
-        and enc.max_table_rows * enc.n_features_per_level <= (_PALLAS_TILE * 128)
-        and enc.n_input_dims in (2, 3)
-    )
 
 
 def _next_multiple(x: int, m: int) -> int:
@@ -454,22 +323,21 @@ class GridEncoding(Encoding):
     per_level_scale: float = 2.0
     grid_type: str = "Hash"  # "Hash" | "Dense" | "Tiled"
     interpolation: str = "Linear"
-    # Gather the table rows at this dtype. NOTE: measured on v5e, bf16
-    # gathers run 2.5x SLOWER than fp32 (the gather is row-issue-bound and
-    # 16-bit layouts relayout badly) — kept only for memory-pressure cases.
+    # Gather the table rows at this dtype (classic path only); fp32 unless
+    # memory is short.
     gather_dtype: str = "float32"
     # Spatial hash for over-full levels: "tcnn" is the reference's
     # XOR-of-primes (bit-exact .ingp interop); "additive" replaces the XOR
     # with ADDITION mod 2^k, which makes the two x-corners of every cell
-    # adjacent table rows (dim-0 prime is 1) and unlocks the pair-gather
-    # fast path (grid_pair_gather_blend) — the TPU-first default for
-    # training configs.
+    # adjacent table rows (dim-0 prime is 1) and unlocks the corner-dup
+    # gather fast path (grid_dup_gather_blend) — the default for the
+    # "compact" training tier.
     hash_variant: str = "tcnn"  # "tcnn" | "additive"
     # Dup-gather row format (additive-hash fast path only): "packed_bf16"
-    # gathers 32 B rows of bf16 feature pairs packed in int32 lanes —
-    # ~1.6x faster than 64 B f32 rows at the same row count (the gather is
-    # row-issue-bound; see grid_dup_gather_blend). Same precision class as
-    # tcnn's fp16 inference params; master table + gradients stay fp32.
+    # gathers 32 B rows of bf16 feature pairs packed in int32 lanes (half
+    # the bytes of f32 rows; see grid_dup_gather_blend). Same precision
+    # class as tcnn's fp16 inference params; master table + gradients stay
+    # fp32.
     dup_gather_dtype: str = "packed_bf16"  # "packed_bf16" | "float32"
 
     def __post_init__(self):
@@ -592,7 +460,7 @@ class GridEncoding(Encoding):
         tetrahedron's D+1 vertex offsets and barycentric weights from the
         in-cell fraction ``frac`` (N, D).
 
-        TPU-native alternative to trilinear: 4 table rows per sample
+        Alternative to trilinear: 4 table rows per sample
         instead of 8 (halving both the forward's HBM row gathers and the
         backward's segment-sum rows), C0-continuous across cells and
         simplices (it is linear interpolation on the Kuhn triangulation).
@@ -622,8 +490,8 @@ class GridEncoding(Encoding):
 
         Returns ``idx`` (L, N, C) int32 into the level's table row and
         ``w`` (L, N, C) float32 blend weights, where C = 2^D for Linear
-        interpolation and D+1 for Simplex. Exposed separately so a Pallas
-        kernel or a custom VJP can reuse the addressing math.
+        interpolation and D+1 for Simplex. Exposed separately so a custom
+        VJP can reuse the addressing math.
         """
         D = self.n_input_dims
         scales, res, sizes, hashed = self._level_geometry()
@@ -643,8 +511,7 @@ class GridEncoding(Encoding):
             # Linear (tiled/dense) index with per-dim stride = resolution^d.
             # Dense levels clamp boundary corners (the top grid plane's
             # "+1" corner) instead of wrapping — keeps lin < size with no
-            # integer mod, which also matters for the Pallas kernel (TPU
-            # has no vector integer division). Tiled levels genuinely wrap.
+            # integer mod. Tiled levels genuinely wrap.
             stride = r.astype(jnp.uint32) ** jnp.arange(D, dtype=jnp.uint32)
             cpos_c = jnp.clip(cpos, 0, r - 1)
             lin = jnp.sum(cpos_c.astype(jnp.uint32) * stride, axis=-1)
@@ -788,8 +655,8 @@ class GridEncoding(Encoding):
 
         ``max_level`` implements the reference's coarse-to-fine
         ``set_max_level`` (levels above are zeroed, gradients included).
-        The default table-gradient path is the sort-based
-        ``grid_gather_blend`` custom VJP (no scatter-add; positions are
+        The default table-gradient path is the ``grid_gather_blend``
+        custom VJP (a scatter-add into the table; positions are
         non-differentiable, like the reference's training path). Pass
         ``differentiable_inputs=True`` where d(out)/dx is needed (SDF
         analytic normals, camera refinement) — plain autodiff, slower
@@ -802,22 +669,6 @@ class GridEncoding(Encoding):
                 level_ids = jnp.arange(self.n_levels)
                 out = jnp.where((level_ids <= max_level)[:, None, None], out, 0.0)
             return jnp.transpose(out, (1, 0, 2)).reshape(x.shape[0], -1)
-        if (
-            not differentiable_inputs
-            and _pallas_eligible(self)
-            and jax.default_backend() == "tpu"
-        ):
-            n = x.shape[0]
-            pad = (-n) % _PALLAS_TILE
-            xp = jnp.pad(x, ((0, pad), (0, 0))) if pad else x
-            out2 = pallas_grid_encode(self, table, xp)[:n]
-            if max_level is not None:
-                level_ids = jnp.arange(self.n_levels)
-                mask = jnp.repeat(
-                    level_ids <= max_level, self.n_features_per_level
-                )
-                out2 = jnp.where(mask[None, :], out2, 0.0)
-            return out2
         if self.gather_dtype == "bfloat16" and not differentiable_inputs:
             table = table.astype(jnp.bfloat16)
         idx, w = self.indices_and_weights(x)
@@ -833,7 +684,7 @@ class GridEncoding(Encoding):
             )
             out = jnp.sum(feats * w[..., None], axis=2)  # (L, N, F)
         else:
-            out = grid_gather_blend_enc(self, table, idx, w)
+            out = grid_gather_blend(table, idx, w)
         if max_level is not None:
             level_ids = jnp.arange(self.n_levels)
             out = jnp.where((level_ids <= max_level)[:, None, None], out, 0.0)

@@ -54,7 +54,7 @@ def create_encoding(n_input_dims: int, cfg: dict, octree=None) -> Encoding:
             per_level_scale=cfg.get("per_level_scale", 2.0),
             grid_type=grid_type,
             interpolation=cfg.get("interpolation", "Linear"),
-            # "additive" unlocks the TPU pair-gather fast path; "tcnn" is
+            # "additive" unlocks the corner-dup gather fast path; "tcnn" is
             # the reference's XOR hash (bit-exact .ingp interop).
             hash_variant=cfg.get("hash_variant", "tcnn"),
             gather_dtype=cfg.get("gather_dtype", "float32"),

@@ -1,9 +1,9 @@
-"""Tiny bias-free MLPs, the TPU counterpart of tcnn's FullyFusedMLP.
+"""Tiny bias-free MLPs, the JAX counterpart of tcnn's FullyFusedMLP.
 
 The reference's networks are 64-wide, 1-3 hidden layer, bias-free fp16
-matmul stacks (SURVEY.md §2.10). On TPU the same computation is a chain of
+matmul stacks (SURVEY.md §2.10). Here the same computation is a chain of
 (N, 64)x(64, 64) matmuls — we keep fp32 master params, cast to bf16 for the
-MXU, and accumulate in fp32 via ``preferred_element_type``. XLA fuses the
+tensor cores, and accumulate in fp32 via ``preferred_element_type``. XLA fuses the
 ReLUs into the matmuls, so a hand-fused megakernel buys little here; the
 hot-path work instead goes into the hash-grid gather/scatter formulations
 (``models/encodings.py``, ``ops/scatter_free.py``).

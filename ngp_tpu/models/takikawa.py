@@ -1,4 +1,4 @@
-"""Takikawa (NGLOD-style) octree feature encoding, TPU-first.
+"""Takikawa (NGLOD-style) octree feature encoding, static-shape.
 
 Semantics follow the reference's ``takikawa_encoding.cuh:28-468``: for an
 input position, walk the triangle octree from ``starting_level``; at each

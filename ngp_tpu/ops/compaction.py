@@ -1,14 +1,14 @@
-"""Scatter-free sample compaction for static-shape TPU training.
+"""Scatter-free sample compaction for static-shape training.
 
 The reference compacts ray-march samples with atomicAdd reservations
 (``compute_loss_kernel_train_nerf``'s compaction pass,
 ``src/testbed_nerf.cu:1660-2012``) so the expensive network forward/backward
-runs only on real samples. The TPU counterpart here keeps static shapes:
+runs only on real samples. The counterpart here keeps static shapes:
 the (N·K,) slot array (valid mask from ``march_rays``) is compacted to a
 fixed ``budget`` of rows via one stable flag-sort, and expanded back with a
 rank gather. Both primitives carry custom VJPs whose backward passes are
 *gathers* (compaction is a bijection onto the valid slots), so no XLA
-scatter — which serializes on TPU — appears in either direction.
+scatter appears in either direction.
 
 Typical use (see ``NerfEngine._network_on_samples``):
 

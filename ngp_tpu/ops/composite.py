@@ -101,7 +101,8 @@ def composite(
     T = jnp.exp(logT)
     used = valid & (T >= min_transmittance)
     w = jnp.where(used, alpha * T, 0.0)
-    rgb = jnp.einsum("nk,nkc->nc", w, rgb_samples)
+    # elementwise + sum, not a dot: a float32 GPU dot may run in TF32
+    rgb = jnp.sum(w[..., None] * rgb_samples, axis=1)
     depth = jnp.sum(w * t_mid, axis=1)
     T_final = jnp.exp(jnp.sum(jnp.where(used, log_one_minus, 0.0), axis=1))
     return CompositedRays(rgb, depth, 1.0 - T_final, T_final, w, used)

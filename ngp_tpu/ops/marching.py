@@ -1,4 +1,4 @@
-"""Ray marching — TPU-native "exponential-lattice" parallel formulation.
+"""Ray marching — static-shape "exponential-lattice" parallel formulation.
 
 The reference marches rays sequentially (``generate_training_samples_nerf``,
 ``src/testbed_nerf.cu:1382-1658``): take a cone-angle-dependent step ``dt``
@@ -6,7 +6,7 @@ when the occupancy grid is occupied, else DDA-skip to the next voxel
 boundary *rounded up to an integer number of steps in "stepping space"*
 (``advance_to_next_voxel``, ``testbed_nerf.cu:298-316``).
 
-Key observation that makes this embarrassingly parallel on TPU: because both
+Key observation that makes this embarrassingly parallel: because both
 the step (+1) and every skip (+ceil(·)) advance by an **integer** amount in
 stepping space, every position a ray can ever visit lies on the fixed
 lattice ``t_k = from_stepping_space(n0 + k)``, ``k ∈ ℕ``, where ``n0`` is
@@ -226,7 +226,7 @@ def march_rays(
     # their lattice index, empty ones are pushed past n_lattice), then two
     # row gathers for (t, dt). Replaces an 11-round binary search whose
     # serialized take_along_axis gathers dominated march time (XLA scatter
-    # AND repeated small gathers both serialize on TPU; one sort doesn't).
+    # AND repeated small gathers; one sort is a single pass).
     lat = jnp.broadcast_to(
         jnp.arange(n_lattice, dtype=jnp.int32)[None, :], occ.shape
     )
@@ -241,7 +241,7 @@ def march_rays(
     sel = jnp.minimum(head, n_lattice - 1)
 
     # Recompute t/dt from the compacted lattice indices (bit-identical to
-    # the (N, M) tables above) — two exps beat two row gathers on TPU.
+    # the (N, M) tables above) — two exps instead of two row gathers.
     n_sel = n0[:, None] + sel.astype(jnp.float32)
     t_c = stepping.from_steps(n_sel)
     dt_c = stepping.from_steps(n_sel + 1.0) - t_c

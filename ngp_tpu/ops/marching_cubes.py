@@ -2,7 +2,7 @@
 GPU marching cubes (``src/marching_cubes.cu``: vertex generation along grid
 edges, face generation from the case table, welded via an edge-index grid).
 
-TPU-native formulation: instead of atomic vertex allocation, vertices live
+Static-shape formulation: instead of atomic vertex allocation, vertices live
 on the three positive-direction edges of every cell (a dense (X,Y,Z,3)
 edge grid); crossing edges are compacted with a cumsum enumeration, faces
 index into the edge grid and are remapped through the compaction — fully

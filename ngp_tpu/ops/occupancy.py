@@ -1,10 +1,10 @@
-"""Cascaded occupancy grid — TPU-native re-design of the reference's
+"""Cascaded occupancy grid — static-shape re-design of the reference's
 density-grid machinery (``src/testbed_nerf.cu:433-812, 3412-3567``).
 
 The reference keeps a Morton-indexed float grid plus a packed bitfield with
 max-pooled mips, updated by atomic scatter-max. Here the grid is a dense
 ``(C, G, G, G)`` float32 array in plain row-major order (Morton buys nothing
-on TPU — gathers are gathers), the "bitfield" is a uint8 0/1 array of the
+here — gathers are gathers), the "bitfield" is a uint8 0/1 array of the
 same shape, and every update step is a vectorized scatter-max / EMA /
 reduce-window — no atomics, fully deterministic.
 
@@ -170,7 +170,7 @@ def splat_max(cfg: OccupancyGridConfig, flat_idx: jax.Array, values: jax.Array) 
     """Max-splat sampled optical thicknesses into a zeroed temp grid
     (``splat_grid_samples_nerf_max_nearest_neighbor``,
     ``testbed_nerf.cu:678-707``) — scatter-free segment-max instead of the
-    reference's atomicMax (XLA scatter serializes on TPU)."""
+    reference's atomicMax."""
     from ngp_tpu.ops.scatter_free import dense_segment_max
 
     G, C = cfg.grid_size, cfg.n_cascades
@@ -247,12 +247,11 @@ def stride_cells(
     occupancy refresh: residue class ``phase % n_strides`` of every
     cascade's flat cell index, jittered within the cell.
 
-    TPU-first replacement for the reference's probe sampling
+    Replacement for the reference's probe sampling
     (``generate_grid_samples_nerf_nonuniform``, ``testbed_nerf.cu:635-676``):
     the reference draws random cells with up-to-10 occupancy-biased probe
-    gathers per sample — on TPU the probe gathers alone are issue-bound at
-    ~10 ns/row (≈450 ms measured at the reference's 2·128³·C sample count),
-    and the scattered splat needs a segment-max sort. A strided residue
+    gathers per sample, and the scattered splat needs a segment-max
+    sort. A strided residue
     class needs NO gathers to choose cells and its splat is a dense lane
     select (see :func:`place_stride`). Every cell of every cascade is
     re-queried exactly once per ``n_strides`` updates — lower variance than
@@ -367,10 +366,10 @@ def mark_untrained_cells(
     start) — pass 1.0 for exact fork behavior; it delays pruning by the
     ~90 decays it takes 1.0 to fall below the 0.01 threshold.
 
-    TPU-first redesign: instead of projecting 8 corners of every cell into
+    Redesign: instead of projecting 8 corners of every cell into
     every camera (a memory-bound (cells × cams × corners) tensor), each
     camera becomes 5 frustum half-spaces and cell *centers* are tested with
-    a bounding-radius margin — one (points × 3) · (3 × 5·I) MXU matmul plus
+    a bounding-radius margin — one (points × 3) · (3 × 5·I) matmul plus
     fused compares. Conservative (a margin-visible cell may be slightly
     outside the true frustum), like the reference's own undistorted
     projection test is approximate under distortion."""
@@ -419,7 +418,10 @@ def mark_untrained_cells(
             mip.astype(jnp.float32)
         )[:, None] + 0.5
         margin = voxel * (0.5 * 1.7320508)  # cell bounding radius
-        d = center @ n_flat.T - offsets[None, :]  # (B, 5I) — MXU
+        # HIGHEST: the default (TF32) dot is off by ~3e-4 relative
+        d = jnp.matmul(
+            center, n_flat.T, precision=jax.lax.Precision.HIGHEST
+        ) - offsets[None, :]  # (B, 5I)
         inside = (d > -margin[:, None]).reshape(-1, n_images, 5)
         return jnp.any(jnp.all(inside, axis=2), axis=1)
 

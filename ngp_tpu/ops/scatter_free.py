@@ -1,59 +1,28 @@
-"""Scatter-free dense segment reductions.
+"""Dense segment reductions.
 
-XLA's scatter on TPU serializes colliding (and even non-colliding) updates
-— measured ~20-60 ns/element on v5e (~107 ms for the 5.2M-element hash-grid
-gradient scatter, scripts/bench_r3.py) — which poisons every "accumulate by
-index" op in the framework's hot paths (hash-grid gradients, occupancy-grid
-splats). These helpers compute dense ``segment_sum`` / ``segment_max`` with
-sorts, cumsums, matmuls, and gathers only.
+:func:`batched_segment_sum` is the hash-grid table gradient: one float32
+scatter-add over all levels, the mechanism of tiny-cuda-nn's grid
+backward (atomic adds). On the GPU XLA lowers it to atomics, so the sum
+order changes from run to run; the result agrees with an exact sum to
+float32 rounding of a few hundred addends per row.
 
-Two strategies, chosen per level size (measured on v5e, bench_r3):
-
-1. **MXU one-hot** (``ops/pallas/segsum.py``): MACs = M·T_pad·F — wins for
-   small tables (T ≲ 64k), zero sort traffic.
-2. **sort + block-windowed one-hot** (``ops/pallas/segsum_sorted.py``):
-   one unstable per-level sort of (key, payload), a 256-bucket coarse
-   histogram to window each 1024-row output block, then one streamed
-   Pallas pass of kron-factored one-hot matmuls per window (MACs =
-   M·1024·F — the sort is what buys the T/1024 MAC reduction vs the
-   direct kernel). Evolution: slot-sentinel double sort (61.5 ms, r1/2)
-   → cumsum + M·T histogram + T-row run-end gather (~24 ms, r3/4) →
-   this (~13.5 ms incl. the 10.7 ms sort) at the fox bench geometry.
-
+:func:`dense_segment_sum` and :func:`dense_segment_max` (occupancy splats,
+mesh optimisation) are scatter-free: sorts, cumsums and gathers only.
 ``segment_max`` reduces to ``segment_sum``: sort (key asc, value desc),
 zero all but each run's first row, then sum.
-
-The histogram path needs the Pallas TPU kernel, so on CPU (tests, debug)
-the original slot-sentinel construction is kept as the fallback.
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-
-# MXU one-hot direct strategy for levels whose padded table has at most
-# this many rows. DEFAULT 0 (disabled): with the block-windowed sorted
-# extractor, routing the small dense levels through the shared batched
-# sort measures 14.7 ms for the full 8-level fox backward vs 39.3 ms with
-# the direct kernel taking levels ≤ 2^16 (v5e, round 5 — the direct
-# kernel's one-hot construction dominates at production M and its
-# presence also serializes against the sort pipeline). The direct kernel
-# remains available for A/B via NGP_TPU_SEGSUM_MXU_MAX_T.
-_MXU_DIRECT_MAX_T = int(os.environ.get("NGP_TPU_SEGSUM_MXU_MAX_T", 0))
 
 
 def blocked_cumsum(x: jax.Array, block: int = 128) -> jax.Array:
     """Inclusive cumsum along the last axis with O(n) memory traffic.
 
-    XLA lowers big cumsums on TPU to a log-depth shifted-add ladder
-    (~log2(n) full passes over the array — measured 1.74 ms vs 0.23 ms for
-    this version at (4, 1.83M) fp32 on v5e). One in-block prefix as a
-    triangular matmul on the MXU, a tiny recursive scan over the block
-    totals, and one broadcast add: ~3 linear passes total.
+    One in-block prefix as a triangular matmul, a tiny recursive scan over
+    the block totals, and one broadcast add: ~3 linear passes total.
 
     ``x`` (..., N) float32; returns the same shape/dtype.
     """
@@ -65,11 +34,11 @@ def blocked_cumsum(x: jax.Array, block: int = 128) -> jax.Array:
         x = jnp.pad(x, [(0, 0)] * len(lead) + [(0, pad)])
     nb = (n + pad) // block
     xb = x.reshape(*lead, nb, block)
-    # in-block inclusive prefix: xb @ upper-triangular ones (MXU)
+    # in-block inclusive prefix: xb @ upper-triangular ones
     tri = jnp.triu(jnp.ones((block, block), x.dtype))
-    # HIGHEST: TPU fp32 dots default to one-pass bf16 rounding, which
-    # would poison the later diff-of-cumsums (catastrophic cancellation
-    # against the running total); 3-pass keeps true fp32 accuracy.
+    # HIGHEST: a reduced-precision fp32 dot (bf16 passes, or TF32 on the
+    # GPU) would poison the later diff-of-cumsums (catastrophic
+    # cancellation against the running total).
     pre = jax.lax.dot_general(
         xb, tri, (((xb.ndim - 1,), (0,)), ((), ())),
         preferred_element_type=jnp.float32,
@@ -83,46 +52,11 @@ def blocked_cumsum(x: jax.Array, block: int = 128) -> jax.Array:
     return out.reshape(*lead, n + pad)[..., :n] if pad else out.reshape(*lead, n)
 
 
-def _pack_bf16_pairs(cols: list[jax.Array]) -> list[jax.Array]:
-    """Pack pairs of float32 arrays into int32 arrays via bf16 bit-halves
-    (sort payload compression: the TPU sort's cost scales with the number
-    of operand columns it moves)."""
-    out = []
-    for i in range(0, len(cols) - 1, 2):
-        lo = jax.lax.bitcast_convert_type(
-            cols[i].astype(jnp.bfloat16), jnp.uint16
-        ).astype(jnp.uint32)
-        hi = jax.lax.bitcast_convert_type(
-            cols[i + 1].astype(jnp.bfloat16), jnp.uint16
-        ).astype(jnp.uint32)
-        out.append((lo | (hi << 16)).astype(jnp.int32))
-    if len(cols) % 2:
-        lo = jax.lax.bitcast_convert_type(
-            cols[-1].astype(jnp.bfloat16), jnp.uint16
-        ).astype(jnp.uint32)
-        out.append(lo.astype(jnp.int32))
-    return out
-
-
-def _unpack_bf16_pairs(packed: list[jax.Array], n: int) -> list[jax.Array]:
-    out = []
-    for p in packed:
-        u = p.astype(jnp.uint32)
-        lo = jax.lax.bitcast_convert_type(
-            (u & 0xFFFF).astype(jnp.uint16), jnp.bfloat16
-        ).astype(jnp.float32)
-        hi = jax.lax.bitcast_convert_type(
-            (u >> 16).astype(jnp.uint16), jnp.bfloat16
-        ).astype(jnp.float32)
-        out.extend([lo, hi])
-    return out[:n]
-
-
 def dense_segment_sum(keys: jax.Array, vals: jax.Array, n_segments: int) -> jax.Array:
     """Sum ``vals`` (M,) or (M, F) into a dense (n_segments,)/(n_segments, F)
     array by ``keys`` (M,) int32 ∈ [0, n_segments). Scatter-free
-    (slot-sentinel construction — used at modest sizes; the training hot
-    path goes through :func:`batched_segment_sum`)."""
+    (slot-sentinel construction — used at modest sizes; the table gradient
+    goes through :func:`batched_segment_sum`)."""
     squeeze = vals.ndim == 1
     if squeeze:
         vals = vals[:, None]
@@ -148,214 +82,18 @@ def dense_segment_sum(keys: jax.Array, vals: jax.Array, n_segments: int) -> jax.
     return dense[:, 0] if squeeze else dense
 
 
-def _sorted_runs_to_dense(cs: jax.Array, ends: jax.Array) -> jax.Array:
-    """(M, F) cumsum of sorted payloads + (T,) inclusive key counts →
-    (T, F) dense sums. ``ends[t] = #keys ≤ t``; empty slots diff to 0."""
-    M = cs.shape[0]
-    at = jnp.take(cs, jnp.clip(ends - 1, 0, M - 1), axis=0, mode="clip")
-    slot_cs = jnp.where((ends > 0)[:, None], at, 0.0)
-    return jnp.diff(slot_cs, axis=0, prepend=jnp.zeros((1, cs.shape[1]), cs.dtype))
-
-
-def _segment_sum_sort_hist(
-    keys: jax.Array,  # (L, M) int32, level l keys in [0, sizes[l])
-    vals: jax.Array,  # (L, M, F) float32
-    sizes: list[int],
-    n_segments: int,
-    payload_dtype: str,
-) -> jax.Array:
-    """Sort + run-extraction strategy (TPU): one batched unstable sort of
-    (key, payload) over the L levels, then one of two run extractors:
-
-    - ``sorted_blocks`` (default): the block-windowed one-hot Pallas
-      kernel (``ops/pallas/segsum_sorted.py``) streams the sorted array
-      once, turning each 1024-row block's window into kron-factored
-      one-hot matmuls — no M-scale cumsum, no M·T histogram, no T-row
-      gather (13.4 ms of extractor stages -> ~2.7 ms measured on v5e at
-      the fox bench geometry).
-    - ``cumsum_hist`` (``NGP_TPU_SEGSUM_HIST=cumsum_hist``): blocked
-      cumsum + batched int8 MXU histogram + run-end row gather (the
-      round-3/4 pipeline, kept for A/B)."""
-    from ngp_tpu.ops.pallas import segsum_sorted as ssb
-    from ngp_tpu.ops.pallas.segsum import segment_count_onehot_batched
-
-    L, M = keys.shape
-    F = vals.shape[-1]
-    cols = [vals[:, :, f] for f in range(F)]
-    if payload_dtype == "bfloat16":
-        cols = _pack_bf16_pairs(cols)
-    s = jax.lax.sort(
-        (keys.astype(jnp.int32), *cols), num_keys=1, is_stable=False
-    )
-    sorted_cols = (
-        _unpack_bf16_pairs(list(s[1:]), F)
-        if payload_dtype == "bfloat16"
-        else list(s[1:])
-    )
-
-    if os.environ.get("NGP_TPU_SEGSUM_HIST", "sorted_blocks") == "sorted_blocks":
-        Tmax = max(sizes)
-        Tpad = -(-Tmax // ssb.RB) * ssb.RB
-        starts = ssb.block_starts_for(keys, Tpad)  # from UNSORTED keys
-        dense = ssb.segment_sum_sorted_blocks(
-            s[0], jnp.stack(sorted_cols, axis=1), starts, Tpad
-        )[:, :Tmax]  # (L, Tmax, F); rows past a level's live size sum to 0
-        if Tmax < n_segments:
-            dense = jnp.pad(dense, ((0, 0), (0, n_segments - Tmax), (0, 0)))
-        return dense
-
-    cs = jnp.stack([blocked_cumsum(c) for c in sorted_cols], axis=-1)  # (L, M, F)
-
-    # One batched histogram for all levels (a level smaller than the max
-    # size just counts zeros past its live rows — its ends stay correct),
-    # then one batched cumsum; counts are < 2^24 so fp32 blocked_cumsum is
-    # exact.
-    Tmax = max(sizes)
-    cnt = segment_count_onehot_batched(keys, Tmax)  # (L, Tmax) int32
-    ends = blocked_cumsum(cnt.astype(jnp.float32)).astype(jnp.int32)
-
-    # One flat F-wide row gather for every level's run ends. Rows past a
-    # level's live size see ends == M (the cumsum saturates), which would
-    # diff to junk — the static live-row mask zeroes them.
-    flat = cs.reshape(L * M, F)
-    offs = (jnp.arange(L, dtype=jnp.int32) * M)[:, None]
-    at = jnp.take(
-        flat, (jnp.clip(ends - 1, 0, M - 1) + offs).reshape(-1), axis=0,
-        mode="clip",
-    ).reshape(L, Tmax, F)
-    live = jnp.asarray(
-        np.arange(Tmax)[None, :] < np.asarray(sizes)[:, None]
-    )  # (L, Tmax) static
-    slot_cs = jnp.where((live & (ends > 0))[..., None], at, 0.0)
-    dense = jnp.diff(
-        slot_cs, axis=1, prepend=jnp.zeros((L, 1, F), slot_cs.dtype)
-    )
-    dense = jnp.where(live[..., None], dense, 0.0)
-    if Tmax < n_segments:
-        dense = jnp.pad(dense, ((0, 0), (0, n_segments - Tmax), (0, 0)))
-    return dense
-
-
 def batched_segment_sum(
-    keys: jax.Array, vals: jax.Array, n_segments: int,
-    payload_dtype: str | None = None,
-    level_sizes: list[int] | tuple[int, ...] | None = None,
+    keys: jax.Array, vals: jax.Array, n_segments: int
 ) -> jax.Array:
-    """Batched scatter-free segment sum: ``keys`` (L, M) int32 ∈
-    [0, n_segments), ``vals`` (L, M, F) → (L, n_segments, F) float32.
-
-    ``level_sizes`` (optional, static): the live row count of each level's
-    table (level l keys < level_sizes[l]); tightens the per-level MXU work.
-
-    Strategy dispatch (TPU): levels with small padded tables take the
-    direct MXU one-hot kernel; the rest share one batched sort + histogram
-    (module docstring). On CPU every level takes the slot-sentinel path
-    (:func:`_segment_sum_sentinel`). ``NGP_TPU_SEGSUM=sentinel`` forces the
-    fallback for A/B timing.
-
-    Precision: addends ride the sort bf16-packed (or the MXU matmul as
-    bf16) with fp32 accumulation — the same precision class as the
-    reference's fp16 atomics with 128× loss scaling (tcnn grid backward,
-    SURVEY §2.10). ``NGP_TPU_SEGSUM_PAYLOAD=float32`` keeps exact fp32
-    addends on the sort path.
-    """
-    L, M = keys.shape
-    F = vals.shape[-1]
-    T = n_segments
-    if payload_dtype is None:
-        payload_dtype = os.environ.get("NGP_TPU_SEGSUM_PAYLOAD", "bfloat16")
-    sizes = list(level_sizes) if level_sizes is not None else [T] * L
-
-    use_hist = (
-        jax.default_backend() == "tpu"
-        and os.environ.get("NGP_TPU_SEGSUM") != "sentinel"
-    )
-    if not use_hist:
-        return _segment_sum_sentinel(keys, vals, T, payload_dtype)
-
-    from ngp_tpu.ops.pallas.segsum import segment_sum_onehot
-
-    def pad_rows(d, size):
-        return d if size >= T else jnp.pad(d, ((0, T - size), (0, 0)))
-
-    mxu_levels = [l for l in range(L) if sizes[l] <= _MXU_DIRECT_MAX_T]
-    sort_levels = [l for l in range(L) if sizes[l] > _MXU_DIRECT_MAX_T]
-
-    dense = [None] * L
-    # chunk size scales down with payload width so the kernel's (sc, F·128)
-    # bf16 one-hot block stays within v5e's 16 MB VMEM (F=16 at sc=2048
-    # allocates 8 MB for that block alone and OOMs the scoped stack)
-    sc = max(512, (2048 * 4) // max(F, 4))
-    for l in mxu_levels:
-        dense[l] = pad_rows(
-            segment_sum_onehot(
-                keys[l], vals[l].astype(jnp.float32), sizes[l], sc=sc
-            ),
-            sizes[l],
-        )
-    if sort_levels:
-        sub = _segment_sum_sort_hist(
-            keys[jnp.asarray(sort_levels)],
-            vals[jnp.asarray(sort_levels)].astype(jnp.float32),
-            [sizes[l] for l in sort_levels],
-            T,
-            payload_dtype,
-        )
-        for i, l in enumerate(sort_levels):
-            dense[l] = sub[i]
-    return jnp.stack(dense)
-
-
-def _segment_sum_sentinel(
-    keys: jax.Array, vals: jax.Array, n_segments: int, payload_dtype: str
-) -> jax.Array:
-    """Round-2 slot-sentinel construction (CPU fallback / A-B reference):
-    sort 1 uses a combined key ``2·key + is_slot`` (unstable — within one
-    run the payload order only permutes the fp addition order); sort 2
-    compacts the slot rows' positions; payload cumsums are gathered at the
-    slot positions as F-wide rows."""
-    L, M = keys.shape
-    F = vals.shape[-1]
-    T = n_segments
-
-    slot_keys = jnp.broadcast_to(jnp.arange(T, dtype=jnp.int32)[None, :], (L, T))
-    comb = jnp.concatenate(
-        [keys.astype(jnp.int32) * 2, slot_keys * 2 + 1], axis=1
-    )  # (L, M+T)
-    zpad = jnp.zeros((L, T), vals.dtype)
-    cols = [jnp.concatenate([vals[:, :, f], zpad], axis=1) for f in range(F)]
-    if payload_dtype == "bfloat16":
-        cols = _pack_bf16_pairs(cols)
-
-    s = jax.lax.sort((comb, *cols), num_keys=1, is_stable=False)
-    comb_sorted = s[0]
-    sorted_cols = (
-        _unpack_bf16_pairs(list(s[1:]), F)
-        if payload_dtype == "bfloat16"
-        else list(s[1:])
-    )
-    cs = jnp.stack(
-        [blocked_cumsum(c) for c in sorted_cols], axis=-1
-    )  # (L, M+T, F)
-
-    # Positions of the slot rows, in key order. Slots carry odd combined
-    # keys; giving them keys < M+T and data keys ≥ M+T, one single-operand
-    # unstable sort leaves the slot positions (already pos-ordered within
-    # the slot class) as the first T entries.
-    pos = jnp.broadcast_to(
-        jnp.arange(M + T, dtype=jnp.int32)[None, :], (L, M + T)
-    )
-    flagged_pos = jnp.where((comb_sorted & 1) == 1, pos, pos + (M + T))
-    (fp_sorted,) = jax.lax.sort((flagged_pos,), num_keys=1, is_stable=False)
-    slot_pos = fp_sorted[:, :T]  # (L, T)
-
-    # one F-wide row gather per slot via a flat take (cheaper than
-    # take_along_axis on TPU — bench_r3)
-    flat = cs.reshape(L * (M + T), F)
-    off = jnp.arange(L, dtype=jnp.int32)[:, None] * (M + T)
-    slot_cs = jnp.take(flat, slot_pos + off, axis=0, mode="clip")  # (L, T, F)
-    return jnp.diff(
-        slot_cs, axis=1, prepend=jnp.zeros((L, 1, F), slot_cs.dtype)
+    """Per-level segment sum: ``keys`` (L, M) int32 ∈ [0, n_segments),
+    ``vals`` (L, M, F) → (L, n_segments, F) float32, with
+    ``out[l, k] = Σ_{m: keys[l, m] = k} vals[l, m]``."""
+    L = keys.shape[0]
+    lvl = jnp.arange(L, dtype=jnp.int32)[:, None]
+    return (
+        jnp.zeros((L, n_segments, vals.shape[-1]), jnp.float32)
+        .at[lvl, keys]
+        .add(vals.astype(jnp.float32))
     )
 
 

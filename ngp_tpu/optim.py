@@ -1,4 +1,4 @@
-"""Optimizer stacks: the TPU counterpart of tcnn's nested
+"""Optimizer stacks: the JAX counterpart of tcnn's nested
 ``Ema{ExponentialDecay{Adam}}`` optimizers (reference ``configs/*/base.json``,
 SURVEY.md §2.10).
 

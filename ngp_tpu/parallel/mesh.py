@@ -2,11 +2,11 @@
 
 The reference's only multi-device mechanism is CUDA peer-to-peer memcpy of
 inference params for multi-GPU *rendering* (``sync_device``,
-``src/testbed.cu:5063-5102``); training is single-GPU. The TPU framework
+``src/testbed.cu:5063-5102``); training is single-GPU. This framework
 replaces that wholesale with a ``jax.sharding.Mesh`` + ``shard_map`` SPMD
 design (SURVEY.md §2.8): rays are the batch axis to shard (DP), the
-hash-table + MLP params are replicated and their gradients ``psum``-ed over
-ICI, occupancy-grid updates are combined with a ``pmax`` collective.
+hash-table + MLP params are replicated and their gradients ``psum``-ed across
+devices, occupancy-grid updates are combined with a ``pmax`` collective.
 """
 
 from __future__ import annotations

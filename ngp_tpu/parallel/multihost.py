@@ -2,14 +2,14 @@
 
 The reference has no cross-host story at all — its only multi-device code
 is CUDA peer-to-peer memcpy for rendering (``src/testbed.cu:5063-5149``).
-The TPU framework scales past one host the JAX-native way (SURVEY §5.8):
+The framework scales past one host the JAX-native way (SURVEY §5.8):
 
 * every process calls :func:`initialize` once (coordinator rendezvous —
   ``jax.distributed.initialize``), after which ``jax.devices()`` is the
   *global* device list;
 * :func:`make_global_mesh` builds a 1-D DP mesh over all global devices,
-  host-major, so the ray batch shards across hosts over DCN and across a
-  host's chips over ICI;
+  host-major, so the ray batch shards across hosts over the network and across a
+  host's devices over its local links (NVLink);
 * the DP train step (``ngp_tpu/parallel/nerf_dp.py``) is mesh-agnostic:
   gradient ``psum`` and occupancy ``pmax`` ride whatever links the mesh
   spans. Dataset pixels are replicated per host (they are read-only);
@@ -17,8 +17,8 @@ The TPU framework scales past one host the JAX-native way (SURVEY §5.8):
 
 Env-variable driven so a pod launcher (GKE/SLURM/gcloud) can configure it
 without code: ``NGP_COORDINATOR`` (host:port), ``NGP_NUM_PROCESSES``,
-``NGP_PROCESS_ID`` — falling back to JAX's own autodetection (TPU pods
-populate these natively).
+``NGP_PROCESS_ID`` — falling back to JAX's own autodetection (cluster
+schedulers JAX knows populate these natively).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def initialize(
         else (int(os.environ["NGP_PROCESS_ID"]) if "NGP_PROCESS_ID" in os.environ else None)
     )
     if coordinator is None and num_processes is None:
-        # Single process, or a TPU pod where JAX autodetects everything.
+        # Single process, or a cluster where JAX autodetects everything.
         if os.environ.get("NGP_AUTO_DISTRIBUTED"):
             jax.distributed.initialize()
             _initialized = True
@@ -69,7 +69,7 @@ def initialize(
 def make_global_mesh(axis: str = DATA_AXIS) -> Mesh:
     """1-D DP mesh over every device in the cluster, host-major (each
     host's local devices are contiguous, so intra-host traffic stays on
-    ICI and only the gradient ``psum``'s tree crosses DCN)."""
+    the local links and only the gradient ``psum``'s tree crosses the network)."""
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     return Mesh(np.asarray(devs), (axis,))
 

@@ -1,13 +1,13 @@
 """Data-parallel NeRF training over a device mesh.
 
-SPMD design (the TPU replacement for the reference's single-GPU training,
-SURVEY.md §2.8 / BASELINE north star):
+SPMD design (the multi-device extension of the reference's single-GPU
+training, SURVEY.md §2.8 / BASELINE north star):
 
 * **Train step**: each device samples its own ray sub-batch (fold the step
   key with ``axis_index``), marches and backprops locally, then gradients
-  are ``pmean``-ed over ICI — XLA's latency-hiding scheduler overlaps the
-  all-reduce with the backward pass. The optimizer update runs replicated,
-  so parameters stay bitwise identical on every chip with no broadcast.
+  are ``pmean``-ed across devices (NCCL over NVLink on a GPU host). The
+  optimizer update runs replicated, so parameters stay bitwise identical
+  on every device with no broadcast.
 * **Occupancy update**: the cell re-query (the expensive density-MLP
   sweep) is sharded over devices; the per-device scatter-max grids are
   combined with ``pmax`` (max is the associative combine the reference's
@@ -34,7 +34,7 @@ from ngp_tpu.parallel.mesh import DATA_AXIS
 
 def build_dp_train_step(
     engine: NerfEngine, mesh: Mesh, axis: str = DATA_AXIS,
-    return_grads: bool = False, sync_gradients: bool = True,
+    return_grads: bool = False,
 ):
     """Returns ``step(state, grid, key) -> (state, metrics)`` jitted over
     the mesh. The global batch (``engine.batch_size`` sample slots) is
@@ -42,11 +42,7 @@ def build_dp_train_step(
 
     ``return_grads`` adds the pmean-ed gradient tree to the metrics — for
     the DP-vs-single-chip equivalence test only (it defeats gradient-buffer
-    donation, so never enable it in production loops).
-
-    ``sync_gradients=False`` drops every collective from the step
-    (shard-local training — numerically divergent). Only for the scaling
-    probe's collective-cost ablation (scripts/bench_scaling.py)."""
+    donation, so never enable it in production loops)."""
     n_dev = mesh.shape[axis]
 
     def make(k: int, n_rays: int):
@@ -61,15 +57,14 @@ def build_dp_train_step(
             _, metrics, grads = engine.batch_loss_and_grads(
                 state.params, bitfield, mean_density, key, data, k, n_rays_local
             )
-            if sync_gradients:
-                grads = jax.lax.pmean(grads, axis)
-                metrics = {
-                    "loss": jax.lax.pmean(metrics["loss"], axis),
-                    "measured_samples": jax.lax.psum(
-                        metrics["measured_samples"], axis
-                    ),
-                    "mean_total": jax.lax.pmean(metrics["mean_total"], axis),
-                }
+            grads = jax.lax.pmean(grads, axis)
+            metrics = {
+                "loss": jax.lax.pmean(metrics["loss"], axis),
+                "measured_samples": jax.lax.psum(
+                    metrics["measured_samples"], axis
+                ),
+                "mean_total": jax.lax.pmean(metrics["mean_total"], axis),
+            }
             if return_grads:
                 metrics["grads"] = grads
             new_state = engine.apply_grads(state, grads)

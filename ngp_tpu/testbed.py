@@ -291,7 +291,7 @@ class Testbed:
         dynamic resolution targeting ``target_fps`` (the reference's
         ``m_dynamic_res_target_fps``, ``testbed.h:578``).
 
-        TPU-first difference from the reference's continuous resolution
+        Difference from the reference's continuous resolution
         scale: the scale factor is quantized to powers of two, so each
         resolution bucket is one compiled program — a continuously varying
         render shape would recompile every frame. Returns a dict with the
@@ -492,9 +492,9 @@ class Testbed:
                     jnp.broadcast_to(jnp.asarray(me), (n, 3, 4)),
                     tpix,
                 )
-                d = jnp.einsum(
-                    "nij,nj->ni", xf[:, :, :3], jnp.asarray(dc, jnp.float32)
-                )
+                from ngp_tpu.geometry.camera import matvec
+
+                d = matvec(xf[:, :, :3], jnp.asarray(dc, jnp.float32))
                 d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
                 o = xf[:, :, 3]
             else:

@@ -2,7 +2,7 @@
 
 The reference keeps host-side EMA timers (``Ema``, ``common.h:315-365``;
 ``m_training_prep_ms/m_training_ms/...``, ``testbed.h:928-933``) and a loss
-graph ring buffer (``update_loss_graph``, ``testbed.cu:3802``). The TPU
+graph ring buffer (``update_loss_graph``, ``testbed.cu:3802``). The JAX
 train loop is asynchronous — per-step host timing would force device syncs
 — so throughput meters here aggregate per *sync window* (the loop already
 syncs at the adaptive-geometry cadence) and EMA over windows.

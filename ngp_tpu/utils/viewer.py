@@ -2,7 +2,7 @@
 
 The reference's GUI is an ImGui/GLFW/OpenGL application wired into the
 CUDA render loop (``src/testbed.cu:1003-2743``). A native window is the
-wrong shape for a TPU host (usually a remote VM), so the TPU-native
+wrong shape for an accelerator host (usually a remote VM), so the
 frontend is a tiny HTTP server around ``Testbed.frame()``: the browser
 polls ``/frame.jpg`` (each poll advances training by a chunk and renders
 at the dynamic resolution) and posts orbit-camera updates. Single-

@@ -6,15 +6,42 @@ playback ``:3606-3675``).
 
     python scripts/blocknerf.py --data <root> --train
     python scripts/blocknerf.py --data <root> --render --out frames/
+
+Fleet-parallel training runs one process per card, each with
+``--block_shard I/N``. A JAX process reserves most of the memory of every
+card it can see, so on a multi-card host each shard pins itself to card
+``I mod n_cards`` (``CUDA_VISIBLE_DEVICES``) before JAX starts, unless
+``CUDA_VISIBLE_DEVICES`` is already set:
+
+    for i in 0 1 2 3; do python scripts/blocknerf.py --data <root> --train \
+        --block_shard $i/4 & done; wait
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
+import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pin_to_one_card(shard_index: int) -> str | None:
+    """Restrict this process to card ``shard_index mod n_cards`` on a host
+    with several NVIDIA cards. Must run before JAX initializes. Returns the
+    card index it pinned, or None (already pinned, one card, or no
+    ``nvidia-smi``)."""
+    if "CUDA_VISIBLE_DEVICES" in os.environ or not shutil.which("nvidia-smi"):
+        return None
+    r = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True)
+    n_cards = sum(l.startswith("GPU ") for l in r.stdout.splitlines())
+    if n_cards <= 1:
+        return None
+    card = str(shard_index % n_cards)
+    os.environ["CUDA_VISIBLE_DEVICES"] = card
+    return card
 
 
 def main(argv=None):
@@ -37,11 +64,15 @@ def main(argv=None):
     if not (args.train or args.render):
         p.error("pass --train and/or --render (like the fork's main.cu)")
 
-    import jax
+    shard = None
+    if args.block_shard:
+        i, nsh = args.block_shard.split("/")
+        shard = (int(i), int(nsh))
+        pin_to_one_card(shard[0])
 
-    cache = os.path.expanduser("~/.cache/jax_comp_cache")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
+    from ngp_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     kw = {}
     if args.batch_size:
@@ -50,10 +81,6 @@ def main(argv=None):
     if args.train:
         from ngp_tpu.blocknerf import train_street_view_nerf
 
-        shard = None
-        if args.block_shard:
-            i, nsh = args.block_shard.split("/")
-            shard = (int(i), int(nsh))
         snaps = train_street_view_nerf(
             args.data, n_steps_override=args.n_steps, block_shard=shard, **kw
         )

@@ -106,18 +106,18 @@ def main(argv=None):
     p.add_argument("--profile", default=None,
                    help="write a jax.profiler trace of a few train steps here")
     p.add_argument("--seed", type=int, default=1337)
-    p.add_argument("--compile_cache", default=os.path.expanduser("~/.cache/jax_comp_cache"))
+    p.add_argument("--no_compile_cache", action="store_true",
+                   help="do not use the persistent compile cache "
+                        "(JAX_COMPILATION_CACHE_DIR, else <repo>/.jax_cache)")
     args = p.parse_args(argv)
 
-    if args.compile_cache:
-        import jax
+    if not args.no_compile_cache:
+        from ngp_tpu.utils.compile_cache import enable_compile_cache
 
-        os.makedirs(args.compile_cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", args.compile_cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
+        enable_compile_cache()
 
     # Multi-process rendezvous when launched as part of a pod job (env
-    # NGP_COORDINATOR/NGP_NUM_PROCESSES/NGP_PROCESS_ID or TPU-pod
+    # NGP_COORDINATOR/NGP_NUM_PROCESSES/NGP_PROCESS_ID, or JAX's own
     # autodetect via NGP_AUTO_DISTRIBUTED; no-op single-process).
     from ngp_tpu.parallel import multihost
 

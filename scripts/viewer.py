@@ -1,6 +1,6 @@
 """Interactive web viewer: train-while-you-look, in the browser.
 
-The TPU-native counterpart of the reference's ImGui window
+The browser counterpart of the reference's ImGui window
 (``src/testbed.cu:1003-2743``) — see ``ngp_tpu/utils/viewer.py``.
 
     python scripts/viewer.py data/nerf/fox --port 8080
@@ -28,11 +28,9 @@ def main(argv=None):
     p.add_argument("--train_steps_per_frame", type=int, default=8)
     args = p.parse_args(argv)
 
-    import jax
+    from ngp_tpu.utils.compile_cache import enable_compile_cache
 
-    cache = os.path.expanduser("~/.cache/jax_comp_cache")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
+    enable_compile_cache()
 
     from ngp_tpu.testbed import Testbed
     from ngp_tpu.utils.viewer import serve

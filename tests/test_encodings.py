@@ -151,9 +151,8 @@ def test_trianglewave():
 
 
 def test_grid_gather_blend_backward_matches_scatter_add():
-    """The sort/cumsum/unique-scatter backward must equal the naive
-    scatter-add table gradient (it replaces XLA's serialized scatter on
-    TPU)."""
+    """The custom backward (one batched float32 scatter-add) must equal
+    autodiff of the plain gather."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -176,21 +175,9 @@ def test_grid_gather_blend_backward_matches_scatter_add():
         out = jnp.sum(feats * w[..., None], axis=2)
         return jnp.sum(out * g)
 
-    import os
-
-    os.environ["NGP_TPU_SEGSUM_PAYLOAD"] = "float32"
-    try:
-        got = jax.grad(loss_custom)(table)
-    finally:
-        del os.environ["NGP_TPU_SEGSUM_PAYLOAD"]
+    got = jax.grad(loss_custom)(table)
     want = jax.grad(loss_ref)(table)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=2e-4, atol=1e-5)
-    # default mode: addends ride the sort bf16-packed (tcnn accumulates
-    # the same gradients as fp16 atomics) — close, not bit-equal
-    got_bf = jax.grad(loss_custom)(table)
-    np.testing.assert_allclose(
-        np.asarray(got_bf), np.asarray(want), rtol=0.05, atol=0.05
-    )
     # forwards agree too
     np.testing.assert_allclose(
         np.asarray(grid_gather_blend(table, idx, w)),
@@ -395,7 +382,6 @@ def test_dup_backward_corners_matches_pairs():
             params["table"]
         )
 
-    os.environ["NGP_TPU_SEGSUM_PAYLOAD"] = "float32"
     try:
         os.environ["NGP_TPU_DUP_BWD"] = "corners"
         gc = table_grad()
@@ -405,9 +391,49 @@ def test_dup_backward_corners_matches_pairs():
         gq = table_grad()
     finally:
         os.environ.pop("NGP_TPU_DUP_BWD", None)
-        del os.environ["NGP_TPU_SEGSUM_PAYLOAD"]
     np.testing.assert_allclose(np.asarray(gc), np.asarray(gp), rtol=1e-4,
                                atol=1e-5)
     # quad grouping (the round-5 default): same gradient
     np.testing.assert_allclose(np.asarray(gq), np.asarray(gp), rtol=1e-4,
                                atol=1e-5)
+
+
+_VJP_CASES = {
+    # the upstream tier's path: XOR hash, classic gather + scatter-add
+    "hash_xor": dict(grid_type="Hash", log2_hashmap_size=10),
+    # the compact tier's path: additive hash, corner-dup gather, quads
+    "hash_additive_quads": dict(grid_type="Hash", log2_hashmap_size=10,
+                                hash_variant="additive"),
+    "dense": dict(grid_type="Dense", log2_hashmap_size=10),
+    "tiled": dict(grid_type="Tiled", log2_hashmap_size=8),
+    "2d_additive_pairs": dict(n_input_dims=2, grid_type="Hash",
+                              log2_hashmap_size=8, hash_variant="additive"),
+    "2d_xor": dict(n_input_dims=2, grid_type="Hash", log2_hashmap_size=8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_VJP_CASES))
+def test_table_gradient_matches_plain_autodiff(case):
+    """Each grid VJP's table gradient equals jax.grad of the plain
+    ``differentiable_inputs=True`` path (take_along_axis + blend, whose
+    transpose is XLA's own scatter-add), under HIGHEST precision."""
+    kw = dict(n_levels=4, n_features_per_level=2, base_resolution=4,
+              per_level_scale=1.8)
+    kw.update(_VJP_CASES[case])
+    enc = GridEncoding(**kw)
+    D = enc.n_input_dims
+    params = enc.init(jax.random.PRNGKey(0))
+    x = jnp.clip(jax.random.uniform(jax.random.PRNGKey(1), (300, D)),
+                 0.0, 1.0 - 1e-6)
+    g = jax.random.normal(jax.random.PRNGKey(2), (300, enc.n_output_dims))
+
+    def grad(plain):
+        return jax.grad(lambda t: jnp.sum(
+            enc({"table": t}, x, differentiable_inputs=plain) * g))(
+            params["table"])
+
+    with jax.default_matmul_precision("highest"):
+        got, want = grad(False), grad(True)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    assert float(jnp.max(jnp.abs(want))) > 0

@@ -1,6 +1,6 @@
-"""Direct tests for the scatter-free segment reductions that replace XLA
-scatter in every hot accumulate-by-index path (hash-grid gradients,
-occupancy splats). Oracle: numpy add.at / maximum.at."""
+"""Direct tests for the dense segment reductions: the hash-grid table
+gradient (``batched_segment_sum``) and the scatter-free occupancy and mesh
+reductions. Oracle: numpy add.at / bincount / maximum.at."""
 
 import jax
 import jax.numpy as jnp
@@ -25,27 +25,59 @@ def test_dense_segment_sum_matches_numpy(m, t, f):
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("l,m,t,f", [(3, 500, 64, 2), (1, 64, 256, 4), (5, 130, 8, 1)])
-@pytest.mark.parametrize("payload", ["float32", "bfloat16"])
-def test_batched_segment_sum_matches_numpy(l, m, t, f, payload):
-    rng = np.random.default_rng(1)
-    keys = rng.integers(0, t, size=(l, m)).astype(np.int32)
-    vals = rng.normal(size=(l, m, f)).astype(np.float32)
-    ref = np.zeros((l, t, f), np.float32)
+def _bincount_ref(keys, vals, t):
+    """float64 host reference: per level and feature, np.bincount."""
+    l, _, f = vals.shape
+    ref = np.zeros((l, t, f), np.float64)
     for i in range(l):
-        np.add.at(ref[i], keys[i], vals[i])
-    out = np.asarray(
-        batched_segment_sum(
-            jnp.asarray(keys), jnp.asarray(vals), t, payload_dtype=payload
-        )
+        for j in range(f):
+            ref[i, :, j] = np.bincount(
+                keys[i], weights=vals[i, :, j].astype(np.float64), minlength=t
+            )
+    return ref
+
+
+@pytest.mark.parametrize("l,m,t,f", [(3, 500, 64, 2), (1, 64, 256, 4), (5, 130, 8, 1)])
+@pytest.mark.parametrize("sizes", ["full", "mixed"])
+def test_batched_segment_sum_matches_numpy(l, m, t, f, sizes):
+    """Every level keyed over the whole table ("full"), or each level over
+    a prefix of its own size, as dense levels of a hash grid are
+    ("mixed": rows past a level's size stay zero)."""
+    rng = np.random.default_rng(1)
+    level_sizes = (
+        [t] * l if sizes == "full"
+        else [max(1, t >> (l - 1 - i)) for i in range(l)]
     )
-    if payload == "float32":
-        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
-    else:
-        # bf16-quantized addends (fp32 accumulation): per-addend relative
-        # error ≤ 2^-8; the sums see it scaled by the addend magnitudes.
-        tol = 2 ** -8 * np.abs(vals).sum(axis=1).max() + 1e-6
-        np.testing.assert_allclose(out, ref, atol=float(tol))
+    keys = np.stack(
+        [rng.integers(0, s, size=m) for s in level_sizes]
+    ).astype(np.int32)
+    vals = rng.normal(size=(l, m, f)).astype(np.float32)
+    ref = _bincount_ref(keys, vals, t)
+    out = np.asarray(
+        batched_segment_sum(jnp.asarray(keys), jnp.asarray(vals), t)
+    )
+    assert out.shape == (l, t, f) and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    for i, s in enumerate(level_sizes):
+        assert np.all(out[i, s:] == 0.0)
+
+
+@pytest.mark.parametrize("n_keys", [1, 7])
+def test_batched_segment_sum_duplicate_heavy(n_keys):
+    """Thousands of addends per row (coarse hash-grid levels): the float32
+    sum stays within 1e-5 of the float64 reference, relative to the
+    level's largest sum."""
+    rng = np.random.default_rng(9)
+    l, m, t, f = 2, 20000, 16, 2
+    keys = rng.integers(0, n_keys, size=(l, m)).astype(np.int32)
+    vals = rng.uniform(-1.0, 1.0, size=(l, m, f)).astype(np.float32) + 0.25
+    ref = _bincount_ref(keys, vals, t)
+    out = np.asarray(
+        batched_segment_sum(jnp.asarray(keys), jnp.asarray(vals), t)
+    )
+    for i in range(l):
+        err = np.abs(out[i] - ref[i]).max()
+        assert err <= 1e-5 * np.abs(ref[i]).max(), err
 
 
 def test_blocked_cumsum_matches_numpy():
@@ -57,20 +89,6 @@ def test_blocked_cumsum_matches_numpy():
         got = np.asarray(blocked_cumsum(jnp.asarray(x)))
         want = np.cumsum(x, axis=-1, dtype=np.float64).astype(np.float32)
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
-
-
-def test_bf16_pack_roundtrip():
-    from ngp_tpu.ops.scatter_free import _pack_bf16_pairs, _unpack_bf16_pairs
-
-    rng = np.random.default_rng(8)
-    cols = [jnp.asarray(rng.normal(size=(3, 50)).astype(np.float32)) for _ in range(3)]
-    packed = _pack_bf16_pairs(cols)
-    assert len(packed) == 2 and all(p.dtype == jnp.int32 for p in packed)
-    out = _unpack_bf16_pairs(packed, 3)
-    for c, o in zip(cols, out):
-        np.testing.assert_allclose(
-            np.asarray(o), np.asarray(c.astype(jnp.bfloat16), np.float32)
-        )
 
 
 def test_batched_segment_sum_empty_segments():
@@ -92,9 +110,7 @@ def test_batched_matches_global():
         dense_segment_sum(jnp.asarray(glob_keys), jnp.asarray(vals.reshape(-1, f)), l * t)
     ).reshape(l, t, f)
     bat = np.asarray(
-        batched_segment_sum(
-            jnp.asarray(keys), jnp.asarray(vals), t, payload_dtype="float32"
-        )
+        batched_segment_sum(jnp.asarray(keys), jnp.asarray(vals), t)
     )
     np.testing.assert_allclose(bat, glob, rtol=1e-5, atol=1e-5)
 
@@ -112,99 +128,3 @@ def test_dense_segment_max_matches_numpy():
     )
     # the max rides through a cumsum, so allow ~eps·log(n) rounding
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("strategy", ["sorted_blocks", "cumsum_hist"])
-def test_tpu_sort_hist_strategy_matches_sentinel_interpret(strategy):
-    """The EXACT code path producing production gradients on TPU hardware
-    — ``_segment_sum_sort_hist`` with either run extractor (the default
-    interval-extraction Pallas kernel, and the cumsum+histogram A/B path)
-    — run here in interpret mode against a numpy oracle on identical
-    inputs at bench-like shapes (round-3 verdict weak #5: the CPU suite
-    always took the sentinel branch, so a numerics drift in the TPU
-    strategy was tested by nothing but the bench's PSNR)."""
-    import functools
-    from unittest import mock
-
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from ngp_tpu.ops import scatter_free as sf
-    from ngp_tpu.ops.pallas import segsum, segsum_sorted as ssb
-
-    rng = np.random.default_rng(7)
-    # bench-like geometry scaled down: mixed level sizes spanning the MXU
-    # threshold, duplicate-heavy keys, empty rows
-    L, M, F, T = 4, 8192, 4, 4096
-    sizes = [512, 2048, 4096, 4096]
-    keys = np.stack(
-        [rng.integers(0, s, M).astype(np.int32) for s in sizes]
-    )
-    vals = rng.normal(size=(L, M, F)).astype(np.float32)
-
-    want = np.zeros((L, T, F), np.float32)
-    for l in range(L):
-        np.add.at(want[l], keys[l], vals[l])
-
-    patches = [
-        mock.patch.object(sf.jax, "default_backend", lambda: "tpu"),
-        mock.patch.object(
-            segsum, "segment_count_onehot_batched",
-            functools.partial(segsum.segment_count_onehot_batched,
-                              interpret=True),
-        ),
-        mock.patch.object(sf, "_MXU_DIRECT_MAX_T", 1024),
-        mock.patch.object(
-            segsum, "segment_sum_onehot",
-            functools.partial(segsum.segment_sum_onehot, interpret=True),
-        ),
-        mock.patch.object(
-            ssb, "segment_sum_sorted_blocks",
-            functools.partial(ssb.segment_sum_sorted_blocks, interpret=True),
-        ),
-        mock.patch.object(
-            ssb, "block_starts_for",
-            functools.partial(ssb.block_starts_for, interpret=True),
-        ),
-        mock.patch.dict(
-            sf.os.environ, {"NGP_TPU_SEGSUM_HIST": strategy}
-        ),
-    ]
-
-    def run(payload_dtype):
-        from contextlib import ExitStack
-
-        with ExitStack() as es:
-            for pt in patches:
-                es.enter_context(pt)
-            return np.asarray(
-                sf.batched_segment_sum(
-                    jnp.asarray(keys), jnp.asarray(vals), T,
-                    payload_dtype=payload_dtype, level_sizes=sizes,
-                )
-            )
-
-    got = run("float32")
-    # level 0 (size 512 <= the mocked MXU threshold) takes the one-hot
-    # kernel, whose matmul is bf16 (tcnn fp16-atomics precision class).
-    # cumsum_hist keeps exact fp32 addends on the sort levels; the
-    # sorted_blocks extractor is a bf16 one-hot matmul everywhere.
-    scale = np.abs(want).max()
-    assert np.abs(got[0] - want[0]).max() < 0.02 * scale
-    if strategy == "cumsum_hist":
-        np.testing.assert_allclose(got[1:], want[1:], rtol=2e-4, atol=2e-4)
-    else:
-        assert np.abs(got[1:] - want[1:]).max() < 0.02 * scale
-
-    # bf16 payload (the production default): same within bf16 tolerance
-    got_bf = run("bfloat16")
-    assert np.abs(got_bf - want).max() < 0.02 * scale
-
-    # and the sentinel path agrees with numpy too (the A/B reference)
-    sent = np.asarray(
-        sf._segment_sum_sentinel(
-            jnp.asarray(keys), jnp.asarray(vals), T, "float32"
-        )
-    )
-    np.testing.assert_allclose(sent, want, rtol=2e-4, atol=2e-4)

@@ -86,7 +86,7 @@ def test_cli_sdf_end_to_end(tmp_path):
             mesh_path, "--network", cfg_path, "--n_steps", "120",
             "--batch_size", str(1 << 12),
             "--save_mesh", out_mesh, "--marching_cubes_res", "40",
-            "--save_snapshot", snap, "--compile_cache", "",
+            "--save_snapshot", snap, "--no_compile_cache",
         ],
         capture_output=True, text=True, env=env, timeout=900,
     )
